@@ -1,5 +1,5 @@
 """Conversion day, end to end: fetch the reference's tarball, preflight it,
-convert it into a TPU weight pack, and run the mel golden gate.
+convert it into a weight pack, and run the mel golden gate.
 
 Each step is also a standalone CLI (see docs/CONVERSION_RUNBOOK.md):
 

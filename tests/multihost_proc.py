@@ -2,8 +2,8 @@
 
 Launched twice by ``tests/test_multihost_2proc.py`` (process_id 0 and 1)
 with a genuine ``jax.distributed`` runtime on the CPU backend — the actual
-``multihost_utils.broadcast_one_to_all`` / Gloo DCN codepath, no injected
-fakes (round-3 verdict #3: the last untested seam before a pod slice).
+``multihost_utils.broadcast_one_to_all`` / Gloo codepath, no injected
+fakes (round-3 verdict #3: the last untested seam before several hosts).
 
 Modes (argv[4]):
 - ``clean``: host 0 submits jobs, resolves them, then calls ``loop.stop()``

@@ -212,7 +212,7 @@ class TestObservability:
     def test_health_includes_device_info(self, client):
         resp = run(client.get("/api/v1/health"))
         data = resp.json()
-        assert data["backend"] in ("cpu", "tpu")
+        assert data["backend"] in ("cpu", "gpu")
         assert data["device_count"] >= 1
         assert data["engine_loaded"] in (True, False, None)
 

@@ -51,12 +51,12 @@ class TestCheckpoint:
         mgr.close()
 
     def test_export_for_inference(self, temp_dir):
-        from vietvoice_tts_tpu.runtime.serialization import load_params
+        from vietvoice_tts_tpu.runtime.serialization import PARAMS_FILE, load_params
 
         params = init_dit_params(0, CFG)
         mgr = CheckpointManager(temp_dir)
         mgr.export_for_inference(params, temp_dir)
-        back = load_params(Path(temp_dir) / "params.msgpack")
+        back = load_params(Path(temp_dir) / PARAMS_FILE)
         np.testing.assert_array_equal(
             np.asarray(params["final_proj"]["w"]), back["final_proj"]["w"]
         )
@@ -191,7 +191,7 @@ class TestInitializerMapping:
         """A tarball without graphs still builds a loadable pack from
         assets + seeded weights, reported as skipped (and synthetic)."""
         from vietvoice_tts_tpu.models.convert import convert_reference_tarball
-        from vietvoice_tts_tpu.runtime.serialization import load_params
+        from vietvoice_tts_tpu.runtime.serialization import PARAMS_FILE, load_params
 
         root = Path(temp_dir)
         (root / "cleaned_audios").mkdir()
@@ -210,7 +210,7 @@ class TestInitializerMapping:
         report = convert_reference_tarball(tar_path, pack, config=cfg)
         assert report["assets"]["vocab"]
         assert "skipped" in report["weights"]
-        params = load_params(pack / "params.msgpack")
+        params = load_params(pack / PARAMS_FILE)
         assert params["dit"]["text_embed"]["table"].shape[0] == 5  # 4 chars + filler
         meta = json.loads((pack / "model_meta.json").read_text())
         assert meta["vocab_size"] == 4

@@ -28,13 +28,12 @@ class TestParser:
         with pytest.raises(SystemExit):
             build_parser().parse_args(["t", "o.wav", "--gender", "robot"])
 
-    def test_tpu_flags(self):
+    def test_runtime_flags(self):
         args = build_parser().parse_args(
-            ["t", "o.wav", "--compute-dtype", "float32", "--mesh-model", "4", "--no-pallas"]
+            ["t", "o.wav", "--compute-dtype", "float32", "--mesh-model", "4"]
         )
         assert args.compute_dtype == "float32"
         assert args.mesh_model == 4
-        assert args.no_pallas is True
 
 
 class TestCreateConfig:

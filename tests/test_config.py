@@ -1,6 +1,6 @@
 """ModelConfig tests — mirrors reference coverage
 (``/root/reference/tests/test_model_config.py``): defaults, validation
-ranges, dict round-trip, constants, plus the TPU additions (buckets,
+ranges, dict round-trip, constants, plus the runtime additions (buckets,
 derived properties)."""
 
 import pytest
@@ -67,7 +67,7 @@ class TestValidation:
 
 class TestDerived:
     def test_head_dim(self):
-        # head_dim 128 spans the full MXU tile (see config.py dit_heads note).
+        # 8 heads × 128 (see config.py dit_heads note).
         assert ModelConfig().head_dim == 128
 
     def test_frame_bucket_for(self):

@@ -344,8 +344,7 @@ class TestStreamingSynthesis:
 
     def test_first_chunk_cap_shortens_first_piece(self, tiny_engine):
         """first_chunk_duration caps the head chunk so playback starts
-        sooner on long texts (TTFA = one chunk's latency). Measured on the
-        real chip: 561 → 174 ms at cap 4.0. The stream stops byte-matching
+        sooner on long texts (TTFA = one chunk's latency). The stream stops byte-matching
         the blocking output (different chunking) but stays valid audio of
         the same total scale."""
         eng = tiny_engine

@@ -5,7 +5,7 @@ environment, everything around it must already be proven — architecture
 facts derived from graph evidence (16 heads, head_dim, mel params), a
 committed starter name map resolving 100% of leaves, and the golden harness
 running BOTH sides end-to-end (reference side via the numpy ONNX evaluator,
-TPU side via the converted pack) at ~0 MAE. The fixture mirrors a torch
+engine side via the converted pack) at ~0 MAE. The fixture mirrors a torch
 export: [out, in] Gemm transB=1 Linears, [out, in/g, k] Convs, per-layer
 ``blocks.{i}.attn.qkv.weight`` naming, Vocos-style decode
 (``models/f5_fixture.py``; reference layout
@@ -25,7 +25,7 @@ from vietvoice_tts_tpu.models.f5_fixture import (
     write_fixture_tarball,
 )
 from vietvoice_tts_tpu.models.probe import probe_tarball
-from vietvoice_tts_tpu.runtime.serialization import load_params
+from vietvoice_tts_tpu.runtime.serialization import PARAMS_FILE, load_params
 
 SPEC = FixtureSpec(
     dim=64, depth=2, heads=16, ff_mult=2, n_mels=20, text_dim=32,
@@ -84,7 +84,7 @@ class TestConversion:
     def test_resolves_all_leaves_bit_exact(self, fixture_pack):
         report = fixture_pack["report"]
         assert report["weights"]["unresolved"] == []
-        converted = load_params(fixture_pack["pack"] / "params.msgpack")
+        converted = load_params(fixture_pack["pack"] / PARAMS_FILE)
         orig = _flatten(fixture_pack["params"])
         conv = _flatten(converted)
         assert set(orig) == set(conv)
@@ -126,13 +126,13 @@ class TestGoldenRehearsal:
     def test_mel_mae_near_zero_through_golden_harness(self, fixture_pack):
         """The decisive rehearsal: reference side runs the fixture graphs
         through the numpy evaluator with the reference's loop semantics
-        (tts_engine.py:148-174), the TPU side integrates OUR sampler from
+        (tts_engine.py:148-174), the engine side integrates OUR sampler from
         the graph's noise via the converted 16-head pack — mel MAE ≈ 0."""
-        from golden import reference_side, tpu_side
+        from golden import engine_side, reference_side
 
         ref = reference_side(str(fixture_pack["tar"]), "xin chào", nfe_step=SPEC.nfe_step)
         assert ref["ref_signal_len"] == 46  # 0.5 s / 256-sample hop
-        rep = tpu_side(
+        rep = engine_side(
             fixture_pack["pack"], ref,
             compute_dtype="float32", transfer_dtype="float32",
         )

@@ -1,8 +1,8 @@
-"""Golden-harness self-test: proves the TPU-side comparison machinery works
+"""Golden-harness self-test: proves the engine-side comparison machinery works
 before the real reference tarball exists (VERDICT r1 item #1).
 
 The oracle is our own engine: we synthesize a "reference" npz (known noise →
-known mel latent) and check golden.tpu_side reproduces it to zero error, and
+known mel latent) and check golden.engine_side reproduces it to zero error, and
 that a perturbed oracle fails the allclose gate."""
 
 import sys
@@ -30,7 +30,7 @@ def pack_and_core(tmp_path_factory):
     mgr.load_models()
     pack = Path(cfg.model_path)
     # Rebuild the config the way golden.py will — from pack metadata.
-    cfg2 = config_from_pack(pack, nfe_step=cfg.nfe_step, use_pallas=False)
+    cfg2 = config_from_pack(pack, nfe_step=cfg.nfe_step)
     core = EngineCore(cfg2, mgr.params, mgr.vocab_size)
     return pack, core, cfg2
 
@@ -93,7 +93,7 @@ class TestGoldenTpuSide:
     def test_oracle_round_trip_is_zero_error(self, pack_and_core):
         pack, core, cfg = pack_and_core
         ref = _oracle_ref(core, cfg)
-        result = golden.tpu_side(pack, ref, atol=1e-2)
+        result = golden.engine_side(pack, ref, atol=1e-2)
         assert result["status"] == "ok"
         assert result["allclose"] is True
         assert result["mel_mae"] < 1e-5, result
@@ -103,7 +103,7 @@ class TestGoldenTpuSide:
         pack, core, cfg = pack_and_core
         ref = _oracle_ref(core, cfg)
         ref = dict(ref, ref_mel=ref["ref_mel"] + 0.05)
-        result = golden.tpu_side(pack, ref, atol=1e-2)
+        result = golden.engine_side(pack, ref, atol=1e-2)
         assert result["allclose"] is False
         assert result["mel_mae"] > 1e-2
 
@@ -116,7 +116,7 @@ class TestGoldenTpuSide:
             noise=np.swapaxes(ref["noise"], 1, 2),
             ref_mel=np.swapaxes(ref["ref_mel"], 1, 2),
         )
-        result = golden.tpu_side(pack, swapped, atol=1e-2)
+        result = golden.engine_side(pack, swapped, atol=1e-2)
         assert result["allclose"] is True and result["mel_mae"] < 1e-5
 
     def test_npz_round_trip(self, pack_and_core, tmp_path):
@@ -131,7 +131,7 @@ class TestGoldenTpuSide:
         )
         with np.load(npz, allow_pickle=False) as z:
             loaded = {k: z[k] for k in z.files}
-        result = golden.tpu_side(pack, loaded, atol=1e-2)
+        result = golden.engine_side(pack, loaded, atol=1e-2)
         assert result["allclose"] is True and result["mel_mae"] < 1e-5
 
 
@@ -144,7 +144,7 @@ class TestCfgCachePrice:
         pack, core, cfg = pack_and_core
         ref = _oracle_ref(core, cfg)
         report = golden.cfg_cache_sweep(
-            pack, ref, intervals=(1, 2), repeats=1, use_pallas=False
+            pack, ref, intervals=(1, 2), repeats=1
         )
         assert report["metric"] == "cfg_cache_price"
         rows = {r["uncond_interval"]: r for r in report["rows"]}

@@ -1,6 +1,6 @@
 """REAL two-process ``jax.distributed`` drive of the multihost serving loop.
 
-Round-3 verdict #3: the DCN broadcast path had only ever run against
+Round-3 verdict #3: the host broadcast path had only ever run against
 injected fake broadcast functions (``tests/test_serving.py``). Here two
 actual processes form a coordination service on localhost (CPU backend,
 Gloo collectives) and run ``MultiHostServingLoop`` with the genuine

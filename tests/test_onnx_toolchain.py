@@ -214,7 +214,7 @@ class TestFullFixtureConversion:
         from tests.conftest import tiny_config
         from vietvoice_tts_tpu.models.vocoder import VocoderConfig, init_vocoder_params
         from vietvoice_tts_tpu.models.convert import _flatten
-        from vietvoice_tts_tpu.runtime.serialization import load_params
+        from vietvoice_tts_tpu.runtime.serialization import PARAMS_FILE, load_params
 
         root = Path(temp_dir)
         cfg = tiny_config(model_cache_dir=str(root / "cache"))
@@ -273,7 +273,7 @@ class TestFullFixtureConversion:
         meta = json.loads((pack / "model_meta.json").read_text())
         assert meta["synthetic"] is False
 
-        params = load_params(pack / "params.msgpack")
+        params = load_params(pack / PARAMS_FILE)
         np.testing.assert_array_equal(
             params["dit"]["final_proj"]["w"], values["dit.final_proj.w"]
         )

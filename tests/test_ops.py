@@ -1,13 +1,20 @@
 """Numerical tests for the compute ops: mel front-end vs torch/scipy
-reference, RoPE properties, attention vs naive implementation, iSTFT
-round-trip."""
+reference, RoPE properties, attention vs naive implementation and the
+choice of attention implementation, iSTFT round-trip."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vietvoice_tts_tpu.ops.attention import attention
+from vietvoice_tts_tpu.ops.attention import (
+    CUDNN,
+    PLAIN,
+    attention,
+    choose_attention,
+    packed_rope_attention,
+    prefix_lengths,
+)
 from vietvoice_tts_tpu.ops.rope import apply_rope, rope_tables
 from vietvoice_tts_tpu.ops.stft import MelFrontend, mel_filterbank
 
@@ -205,83 +212,117 @@ class TestDepthwiseConvRewrite:
         np.testing.assert_allclose(ours, ref, atol=1e-5)
 
 
-class TestFusedRopeAttentionInterpret:
-    """Pallas fused-attention logic via the interpreter (runs on CPU).
+class TestChooseAttention:
+    """One function picks the attention implementation from the platform,
+    the compute dtype and the head width."""
 
-    The real-TPU parity tests live in test_pallas_tpu.py; these cover the
-    kernel's indexing/RoPE logic — in particular the head-PAIR path used by
-    converted F5 models (head_dim 64) — in the default CPU suite."""
+    @pytest.mark.parametrize(
+        "platform,dtype,head_dim,expected",
+        [
+            ("gpu", "bfloat16", 128, CUDNN),
+            ("gpu", "bfloat16", 64, CUDNN),  # converted F5 layout, 16 × 64
+            ("gpu", "float16", 128, CUDNN),
+            ("gpu", "float32", 128, PLAIN),  # the f32 reference numerics
+            ("gpu", "bfloat16", 100, PLAIN),  # not a multiple of 8
+            ("gpu", "bfloat16", 256, PLAIN),  # wider than 128
+            ("cpu", "bfloat16", 128, PLAIN),
+            ("cpu", "float32", 64, PLAIN),
+        ],
+    )
+    def test_table(self, platform, dtype, head_dim, expected):
+        assert choose_attention(platform, jnp.dtype(dtype), head_dim) == expected
 
-    def _reference(self, qkv, cos, sin, mask, heads):
-        B, N, three_hd = qkv.shape
-        D = three_hd // (3 * heads)
-        r = qkv.reshape(B, N, 3, heads, D)
-        q = jnp.moveaxis(jnp.asarray(r[:, :, 0]), 1, 2)
-        k = jnp.moveaxis(jnp.asarray(r[:, :, 1]), 1, 2)
-        v = jnp.moveaxis(jnp.asarray(r[:, :, 2]), 1, 2)
-        out = attention(
-            apply_rope(q, cos, sin), apply_rope(k, cos, sin), v,
-            jnp.asarray(mask), use_pallas=False,
-        )
-        return np.moveaxis(np.asarray(out), 1, 2).reshape(B, N, heads * D)
 
-    @pytest.mark.parametrize("heads,head_dim", [(2, 128), (4, 64)])
-    def test_matches_xla_path(self, heads, head_dim):
-        from vietvoice_tts_tpu.ops.pallas.fused_rope_attention import (
-            fused_qkv_rope_attention,
-        )
+class TestPrefixLengths:
+    def test_prefix_mask_to_lengths(self):
+        mask = np.arange(8)[None, :] < np.array([8, 3, 0])[:, None]
+        lengths = prefix_lengths(jnp.asarray(mask))
+        assert lengths.dtype == jnp.int32
+        np.testing.assert_array_equal(np.asarray(lengths), [8, 3, 0])
 
-        B, N = 2, 128
-        rng = np.random.default_rng(0)
-        qkv = rng.standard_normal((B, N, 3 * heads * head_dim)).astype(np.float32)
-        mask = np.arange(N)[None, :] < np.array([N - 40, N])[:B, None]
-        cos, sin = rope_tables(N, head_dim)
+    @pytest.mark.parametrize(
+        "row", [[True, False, True, False], [False, True, True, True]]
+    )
+    def test_non_prefix_mask_refused(self, row):
+        mask = np.array([[True] * 4, row])
+        with pytest.raises(ValueError, match="prefix"):
+            prefix_lengths(jnp.asarray(mask))
+
+    def test_traced_mask_gives_lengths(self):
+        mask = np.arange(6)[None, :] < np.array([6, 2])[:, None]
+        out = jax.jit(prefix_lengths)(jnp.asarray(mask))
+        np.testing.assert_array_equal(np.asarray(out), [6, 2])
+
+
+def _moveaxis_reference(qkv, cos, sin, mask, heads):
+    """Packed QKV → [B, H, N, D] views → RoPE → plain attention → packed."""
+    B, N, three_hd = qkv.shape
+    D = three_hd // (3 * heads)
+    r = qkv.reshape(B, N, 3, heads, D)
+    q, k, v = (jnp.moveaxis(jnp.asarray(r[:, :, i]), 1, 2) for i in range(3))
+    out = attention(
+        apply_rope(q, cos, sin), apply_rope(k, cos, sin), v, jnp.asarray(mask)
+    )
+    return np.moveaxis(np.asarray(out), 1, 2).reshape(B, N, heads * D)
+
+
+class TestPackedRopeAttention:
+    """The packed-QKV wrapper the DiT calls, against the moveaxis
+    reference, at the serving (8 × 128) and converted-F5 (16 × 64) head
+    layouts, with padded rows."""
+
+    @pytest.mark.parametrize("heads,head_dim", [(8, 128), (16, 64)])
+    @pytest.mark.parametrize("n", [64, 768])
+    def test_plain_matches_moveaxis_reference(self, heads, head_dim, n):
+        rng = np.random.default_rng(n + heads)
+        qkv = rng.standard_normal((2, n, 3 * heads * head_dim)).astype(np.float32)
+        lengths = np.array([n, n - n // 3])
+        mask = np.arange(n)[None, :] < lengths[:, None]
+        cos, sin = rope_tables(n, head_dim)
         out = np.asarray(
-            fused_qkv_rope_attention(
+            packed_rope_attention(
                 jnp.asarray(qkv), jnp.asarray(cos), jnp.asarray(sin),
-                jnp.asarray(mask), heads=heads, interpret=True,
+                jnp.asarray(mask), heads, PLAIN,
             )
         )
-        ref = self._reference(qkv, cos, sin, mask, heads)
-        assert np.abs(out - ref)[:, : N - 40].max() < 5e-3
+        ref = _moveaxis_reference(qkv, cos, sin, mask, heads)
+        assert out.shape == (2, n, heads * head_dim)
+        valid = mask[..., None]
+        assert np.abs(np.where(valid, out - ref, 0.0)).max() < 1e-5
 
-    def test_unsupported_shape_raises(self):
-        from vietvoice_tts_tpu.ops.pallas.fused_rope_attention import (
-            fused_qkv_rope_attention,
-        )
+    def test_cudnn_call_contract(self, monkeypatch):
+        """The cuDNN branch hands [B, N, H, D] views and per-row lengths to
+        ``jax.nn.dot_product_attention``. cuDNN itself runs only on the GPU
+        (``chip_smoke.py``), so the call is routed to JAX's own
+        implementation with the same arguments."""
+        real = jax.nn.dot_product_attention
+        calls = []
 
-        qkv = jnp.zeros((1, 128, 3 * 3 * 64), jnp.float32)  # 3 heads of 64
-        cos, sin = rope_tables(128, 64)
-        with pytest.raises(ValueError, match="head_dim"):
-            fused_qkv_rope_attention(qkv, cos, sin, None, heads=3, interpret=True)
+        def fake(q, k, v, **kw):
+            calls.append((q.shape, kw["implementation"]))
+            return real(q, k, v, **{**kw, "implementation": "xla"})
 
-    def test_supports_shape(self):
-        from vietvoice_tts_tpu.ops.pallas.fused_rope_attention import supports_shape
-
-        assert supports_shape(8, 128, 512)
-        assert supports_shape(16, 64, 512)  # converted F5 shape
-        assert not supports_shape(3, 64, 512)
-        assert not supports_shape(8, 96, 512)
-        assert not supports_shape(16, 64, 500)  # frames not 8-multiple
-
-    def test_bucket_768_block_q(self):
-        """Regression: n=768 isn't divisible by the default block_q=512; the
-        kernel must halve to a dividing block size instead of raising (this
-        crashed voice_clone synthesis when the 768 frame bucket landed)."""
-        from vietvoice_tts_tpu.ops.pallas.fused_rope_attention import (
-            fused_qkv_rope_attention,
-        )
-
-        heads, head_dim, B, N = 2, 128, 1, 768
-        rng = np.random.default_rng(1)
-        qkv = rng.standard_normal((B, N, 3 * heads * head_dim)).astype(np.float32)
-        mask = np.arange(N)[None, :] < np.array([700])[:, None]
-        cos, sin = rope_tables(N, head_dim)
+        monkeypatch.setattr(jax.nn, "dot_product_attention", fake)
+        heads, head_dim, n = 4, 64, 96
+        rng = np.random.default_rng(3)
+        qkv = rng.standard_normal((2, n, 3 * heads * head_dim)).astype(np.float32)
+        mask = np.arange(n)[None, :] < np.array([n, 40])[:, None]
+        cos, sin = rope_tables(n, head_dim)
         out = np.asarray(
-            fused_qkv_rope_attention(
+            packed_rope_attention(
                 jnp.asarray(qkv), jnp.asarray(cos), jnp.asarray(sin),
-                jnp.asarray(mask), heads=heads, interpret=True,
+                jnp.asarray(mask), heads, CUDNN,
             )
         )
-        ref = self._reference(qkv, cos, sin, mask, heads)
-        assert np.abs(out - ref)[:, :700].max() < 5e-3
+        assert calls == [((2, n, heads, head_dim), "cudnn")]
+        ref = _moveaxis_reference(qkv, cos, sin, mask, heads)
+        assert np.abs(np.where(mask[..., None], out - ref, 0.0)).max() < 1e-4
+
+    def test_unknown_implementation_refused(self):
+        qkv = jnp.zeros((1, 8, 3 * 2 * 8), jnp.float32)
+        cos, sin = rope_tables(8, 8)
+        with pytest.raises(ValueError, match="unknown attention"):
+            packed_rope_attention(
+                qkv, jnp.asarray(cos), jnp.asarray(sin),
+                jnp.ones((1, 8), bool), 2, "pallas",
+            )

@@ -30,7 +30,6 @@ DIT = DiTConfig(
     text_conv_layers=1,
     vocab_size=32,
     compute_dtype=jnp.float32,
-    use_pallas=False,
 )
 VOC = VocoderConfig(
     dim=64, intermediate_dim=128, num_layers=1, n_mels=16, n_fft=256, hop_length=64
@@ -131,7 +130,7 @@ class TestUlyssesSequenceParallel:
             np.asarray(
                 attention(
                     apply_rope(qb, cos, sin), apply_rope(kb, cos, sin), vb,
-                    jnp.asarray(mask), use_pallas=False,
+                    jnp.asarray(mask),
                 )
             ),
             1,
@@ -152,6 +151,37 @@ class TestUlyssesSequenceParallel:
         # Masked rows beyond valid length are undefined; compare valid region.
         np.testing.assert_allclose(out[0], ref[0], atol=2e-5)
         np.testing.assert_allclose(out[1, : N // 2], ref[1, : N // 2], atol=2e-5)
+
+    def test_bf16_matches_single_device_packed_path(self):
+        """In bf16, Ulysses and the single-device packed path share one
+        rotate-then-attend step, so each valid row comes out bit-identical."""
+        from vietvoice_tts_tpu.ops.attention import PLAIN, packed_rope_attention
+        from vietvoice_tts_tpu.ops.rope import rope_tables
+        from vietvoice_tts_tpu.parallel.sequence import (
+            sequence_sharding,
+            ulysses_attention,
+        )
+
+        B, N, H, D = 2, 64, 8, 16
+        q, k, v, mask = self._data(B, N, H, D)
+        q, k, v = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+        cos, sin = (jnp.asarray(t) for t in rope_tables(N, D))
+        qkv = jnp.concatenate([x.reshape(B, N, H * D) for x in (q, k, v)], -1)
+        ref = np.asarray(
+            packed_rope_attention(qkv, cos, sin, jnp.asarray(mask), H, PLAIN),
+            np.float32,
+        ).reshape(B, N, H, D)
+
+        mesh = make_mesh(data=2, model=4)
+        shard = sequence_sharding(mesh)
+        out = ulysses_attention(
+            *(jax.device_put(x, shard) for x in (q, k, v)),
+            cos, sin, jnp.asarray(mask), mesh=mesh,
+        )
+        assert out.dtype == jnp.bfloat16
+        out = np.asarray(out, np.float32)
+        np.testing.assert_array_equal(out[0], ref[0])
+        np.testing.assert_array_equal(out[1, : N // 2], ref[1, : N // 2])
 
     def test_rejects_indivisible_heads(self):
         from vietvoice_tts_tpu.ops.rope import rope_tables
@@ -192,7 +222,7 @@ class TestRingSequenceParallel:
             np.asarray(
                 attention(
                     apply_rope(qb, cos, sin), apply_rope(kb, cos, sin), vb,
-                    jnp.asarray(mask), use_pallas=False,
+                    jnp.asarray(mask),
                 )
             ),
             1,

@@ -192,16 +192,16 @@ class TestHostileVariants:
         assert any("vocab.txt missing" in b for b in report["blockers"])
 
     def test_kernel_friendly_head_shape_is_noted(self, tmp_path):
-        """A 128-multiple head_dim (or 64×even-heads) gets the fused-kernel
-        note instead of the fallback note."""
+        """A head_dim inside cuDNN's envelope (a multiple of 8, at most 128)
+        gets the fused-attention note instead of the fallback note."""
         spec = FixtureSpec(
             dim=128, depth=2, heads=2, ff_mult=2, n_mels=20, text_dim=32,
             text_conv_layers=2, vocab_size=211, voc_dim=48, voc_inter=96,
             voc_layers=2, nfe_step=8,
-        )  # head_dim = 64, even head count → fused kernel applies
+        )  # head_dim = 64 → cuDNN fused attention applies
         tar, name_map, _ = write_fixture_tarball(
             tmp_path / "k.pt", spec, seed=6, ref_seconds=0.4
         )
         report = preflight_report(tar, name_map=name_map)
         arch = report["architecture"]
-        assert any("fused Pallas attention applies" in n for n in arch["notes"])
+        assert any("cuDNN fused attention applies" in n for n in arch["notes"])

@@ -5,18 +5,20 @@ materialization/reload determinism and the catalog APIs."""
 import json
 from pathlib import Path
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from tests.conftest import tiny_config
-from vietvoice_tts_tpu.runtime.serialization import load_params, save_params
+from vietvoice_tts_tpu.runtime.serialization import PARAMS_FILE, load_params, save_params
 from vietvoice_tts_tpu.runtime.session import ModelSessionManager
 
 
 class TestPack:
     def test_pack_layout(self, tiny_pack_dir):
         pack = Path(tiny_pack_dir) / "vietvoice-tpu-v1"
-        assert (pack / "params.msgpack").exists()
+        assert (pack / PARAMS_FILE).exists()
         assert (pack / "vocab.txt").exists()
         assert (pack / "audio_metadata.json").exists()
         assert (pack / "model_meta.json").exists()
@@ -57,14 +59,83 @@ class TestPack:
             np.testing.assert_array_equal(np.asarray(leaf_a), np.asarray(leaf_b))
 
 
+class TestPackWithoutParams:
+    @pytest.mark.parametrize(
+        "legacy, match",
+        [(True, "params.msgpack.*convert.py"), (False, "refusing to materialize")],
+    )
+    def test_refused_and_left_untouched(self, tiny_pack_dir, temp_dir, legacy, match):
+        """A pack dir without ``params.npz`` (e.g. one converted to the old
+        flax-msgpack format) is refused, never overwritten by a synthetic one,
+        even though synthetic packs are allowed."""
+        import shutil
+
+        src = Path(tiny_config(model_cache_dir=tiny_pack_dir).model_path)
+        cfg = tiny_config(model_cache_dir=temp_dir, allow_synthetic_pack=True)
+        pack = Path(cfg.model_path)
+        shutil.copytree(src, pack)
+        (pack / PARAMS_FILE).unlink()
+        if legacy:
+            (pack / "params.msgpack").write_bytes(b"\x81\xa3dit\x80")
+        meta = json.loads((pack / "model_meta.json").read_text())
+        meta.update(synthetic=False, converted_from="reference.tar.gz")
+        (pack / "model_meta.json").write_text(json.dumps(meta))
+        before = {
+            f: (pack / f).read_bytes()
+            for f in ("vocab.txt", "model_meta.json", "audio_metadata.json")
+        }
+        clips = sorted(p.name for p in (pack / "audios").iterdir())
+
+        with pytest.raises(RuntimeError, match=match):
+            ModelSessionManager(cfg).load_models()
+
+        assert not (pack / PARAMS_FILE).exists()
+        assert {f: (pack / f).read_bytes() for f in before} == before
+        assert sorted(p.name for p in (pack / "audios").iterdir()) == clips
+
+
 class TestSerialization:
     def test_round_trip(self, temp_dir):
         params = {"a": np.arange(6, dtype=np.float32).reshape(2, 3), "n": {"b": np.ones(4)}}
-        path = f"{temp_dir}/p.msgpack"
+        path = f"{temp_dir}/{PARAMS_FILE}"
         save_params(path, params)
         back = load_params(path)
         np.testing.assert_array_equal(back["a"], params["a"])
         np.testing.assert_array_equal(back["n"]["b"], params["n"]["b"])
+
+    def test_round_trip_keeps_lists_and_dtypes(self, temp_dir):
+        """Lists (``text_embed.blocks``, ``conv_pos``) stay lists in order;
+        every leaf keeps its dtype and shape, bfloat16 included."""
+        params = {
+            "dit": {
+                "text_embed": {
+                    "blocks": [
+                        {"pw1": {"w": np.full((2, 3), i, np.float32)}}
+                        for i in range(11)
+                    ]
+                },
+                "conv_pos": [
+                    {"w": np.ones((3, 1, 4), jnp.bfloat16)},
+                    {"b": np.arange(4, dtype=np.float16)},
+                ],
+                "steps": np.int32(7),
+            },
+            "vocoder": {"ids": np.arange(5, dtype=np.int64)},
+        }
+        path = f"{temp_dir}/{PARAMS_FILE}"
+        save_params(path, params)
+        back = load_params(path)
+        assert jax.tree.structure(back) == jax.tree.structure(params)
+        blocks = back["dit"]["text_embed"]["blocks"]
+        assert isinstance(blocks, list) and isinstance(back["dit"]["conv_pos"], list)
+        assert [float(b["pw1"]["w"][0, 0]) for b in blocks] == list(range(11))
+        for got, want in zip(jax.tree.leaves(back), jax.tree.leaves(params)):
+            assert got.dtype == np.asarray(want).dtype
+            np.testing.assert_array_equal(got, np.asarray(want))
+
+    def test_unstorable_key_refused(self, temp_dir):
+        with pytest.raises(ValueError, match="cannot be stored"):
+            save_params(f"{temp_dir}/{PARAMS_FILE}", {"a/b": np.zeros(1)})
 
 
 class TestSelectSample:

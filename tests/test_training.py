@@ -22,7 +22,6 @@ CFG = DiTConfig(
     text_conv_layers=1,
     vocab_size=32,
     compute_dtype=jnp.float32,
-    use_pallas=False,
 )
 TRAIN = TrainConfig(warmup_steps=2)
 
@@ -126,7 +125,6 @@ class TestConvergence:
     OCFG = DiTConfig(
         dim=32, depth=1, heads=2, ff_mult=2, n_mels=8, text_dim=16,
         text_conv_layers=1, vocab_size=16, compute_dtype=jnp.float32,
-        use_pallas=False,
     )
 
     def _overfit(self, steps=400, compute_dtype="float32"):

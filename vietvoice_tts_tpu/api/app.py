@@ -11,14 +11,13 @@ Route-for-route parity with ``/root/reference/vietvoicetts/api/app.py``:
 
 from __future__ import annotations
 
+import asyncio
 import os
 import time
 from pathlib import Path
 from time import monotonic
 from typing import Any, Dict
 from uuid import uuid4
-
-import anyio
 
 from ..utils.logging import get_logger
 from .asgi import App, File, HTTPException, NotFoundException, Response, Stream
@@ -124,7 +123,7 @@ async def health() -> HealthResponse:
             # recovery is already underway.
             batcher_healthy = engine.batcher.healthy
             if not batcher_healthy:
-                await anyio.to_thread.run_sync(engine.batcher.ensure_running)
+                await asyncio.to_thread(engine.batcher.ensure_running)
             last_error = engine.batcher.last_error
     return HealthResponse(
         status="healthy" if batcher_healthy in (None, True) else "degraded",
@@ -343,7 +342,7 @@ async def synthesize_to_file(data: SynthesizeRequest) -> SynthesizeFileResponse:
     # Off the event loop — parity with the reference's aiofiles write
     # (/root/reference/vietvoicetts/api/app.py:83-94); the only blocking I/O
     # otherwise left in the async path.
-    await anyio.to_thread.run_sync(file_path.write_bytes, audio_bytes)
+    await asyncio.to_thread(file_path.write_bytes, audio_bytes)
     _file_cache[file_id] = {"path": file_path, "format": data.output_format}
     return SynthesizeFileResponse(
         download_url=f"/api/v1/download/{file_id}",

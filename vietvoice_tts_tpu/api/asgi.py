@@ -11,6 +11,7 @@ plain ASGI, so production serving works under uvicorn unchanged.
 
 from __future__ import annotations
 
+import asyncio
 import inspect
 import json
 import re
@@ -296,12 +297,10 @@ class App:
             else:
                 # Blocking iterator: pull each piece on a worker thread so a
                 # slow producer can't stall the event loop.
-                from anyio import to_thread
-
                 it = iter(resp.chunks)
                 sentinel = object()
                 while True:
-                    chunk = await to_thread.run_sync(next, it, sentinel)
+                    chunk = await asyncio.to_thread(next, it, sentinel)
                     if chunk is sentinel:
                         break
                     await send(

@@ -55,7 +55,7 @@ class HealthResponse(BaseModel):
 
     status: Literal["healthy", "degraded"]
     uptime: int = Field(..., description="Uptime of the server in seconds.")
-    backend: Optional[str] = Field(None, description="JAX backend (tpu/cpu).")
+    backend: Optional[str] = Field(None, description="JAX backend (gpu/cpu).")
     device_count: Optional[int] = Field(None, description="Visible devices.")
     engine_loaded: Optional[bool] = Field(
         None, description="Whether the model is resident in memory."
@@ -128,8 +128,8 @@ class StreamSynthesizeRequest(SynthesizeRequest):
         le=20,
         description=(
             "Cap the FIRST chunk's target audio length (seconds) so "
-            "playback starts sooner on long texts (measured TTFA 561→174 ms "
-            "at 4.0). Adds one cross-fade boundary near the start; the "
+            "playback starts sooner on long texts. Adds one cross-fade "
+            "boundary near the start; the "
             "stream then no longer byte-matches the blocking output."
         ),
     )

@@ -2,7 +2,7 @@
 
 Counterpart of ``/root/reference/vietvoicetts/api/tts_engine.py:11-101``:
 a lazily-initialized process-wide ``TTSApi`` singleton, with the blocking
-synthesis call moved off the event loop via ``anyio.to_thread``. Two
+synthesis call moved off the event loop via ``asyncio.to_thread``. Two
 deliberate fixes over the reference:
 
 - speed is passed as a per-request argument instead of mutating the shared
@@ -13,9 +13,8 @@ deliberate fixes over the reference:
 
 from __future__ import annotations
 
+import asyncio
 from typing import Optional
-
-from anyio import to_thread
 
 from ..client import TTSApi
 from ..config import ModelConfig
@@ -83,7 +82,7 @@ async def synthesize_async(
                 speed=speed,
             )
 
-        audio_bytes, _gen_time = await to_thread.run_sync(_call)
+        audio_bytes, _gen_time = await asyncio.to_thread(_call)
         sample_rate = engine.config.sample_rate
         # 16-bit PCM mono with a 44-byte header.
         duration_seconds = max(len(audio_bytes) - 44, 0) / (sample_rate * 2)
@@ -124,7 +123,7 @@ async def synthesize_stream_async(
     sentinel = object()
     while True:
         try:
-            piece = await to_thread.run_sync(next, gen, sentinel)
+            piece = await asyncio.to_thread(next, gen, sentinel)
         except Exception as e:  # noqa: BLE001 — mid-stream failure
             log.error("Error during streaming synthesis: %s", e)
             raise

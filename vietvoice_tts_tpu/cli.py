@@ -6,7 +6,7 @@ flags, and a full-screen interactive menu (launched when no args are given)
 with voice selection, reference-audio setup including a filterable sample
 browser with playback, performance/model/audio sections, and a confirmation
 screen writing to ``output/<name>.wav``. Differences: the "ONNX Runtime"
-section becomes "TPU Runtime" (dtype, buckets, batch, mesh axes), and the
+section becomes "Runtime" (dtype, buckets, batch, mesh axes), and the
 menu is data-driven instead of one function per section.
 """
 
@@ -40,7 +40,7 @@ class Colors:
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="vietvoice-tts",
-        description="VietVoice TTS (TPU) - Vietnamese Text-to-Speech",
+        description="VietVoice TTS - Vietnamese Text-to-Speech",
         formatter_class=argparse.RawDescriptionHelpFormatter,
         epilog="""
 Examples:
@@ -96,7 +96,7 @@ Interactive mode: run without arguments.
         default=1,
         help="Deep-block-cache acceleration: run the full DiT depth every "
         "r-th NFE eval and reuse the deep trunk's contribution in between "
-        "(1 = exact; 2 measured 1.29x solve — judge quality on real "
+        "(1 = exact; judge quality on real "
         "weights first; mutually exclusive with --nfe-uncond-interval)",
     )
     parser.add_argument(
@@ -119,7 +119,7 @@ Interactive mode: run without arguments.
         "--min-target-duration", type=float, default=1.0, help="Min target seconds"
     )
 
-    # TPU runtime (replaces the reference's ONNX-runtime thread flags).
+    # Runtime (replaces the reference's ONNX-runtime thread flags).
     parser.add_argument(
         "--compute-dtype",
         choices=["bfloat16", "float32"],
@@ -128,9 +128,6 @@ Interactive mode: run without arguments.
     )
     parser.add_argument(
         "--max-batch-size", type=int, default=8, help="Max chunks per device batch"
-    )
-    parser.add_argument(
-        "--no-pallas", action="store_true", help="Disable Pallas kernels"
     )
     parser.add_argument(
         "--mesh-data", type=int, default=1, help="Data-parallel mesh axis size"
@@ -178,7 +175,6 @@ def create_config(args: Union[argparse.Namespace, Dict[str, Any]]) -> ModelConfi
         min_target_duration=args.min_target_duration,
         compute_dtype=args.compute_dtype,
         max_batch_size=args.max_batch_size,
-        use_pallas=not args.no_pallas,
         mesh_data_axis=args.mesh_data,
         mesh_model_axis=args.mesh_model,
     )
@@ -315,7 +311,7 @@ _SECTIONS = [
         ],
     ),
     (
-        "TPU Runtime",
+        "Runtime",
         [
             ("compute_dtype", "Compute dtype (bfloat16/float32)", str),
             ("max_batch_size", "Max device batch size", int),
@@ -506,7 +502,7 @@ def _confirm_and_synthesize(settings: Dict[str, Any]) -> bool:
 
 
 def run_interactive_mode() -> None:
-    print(f"\n{Colors.CYAN}{Colors.BOLD}VietVoice TTS (TPU) — Interactive Mode{Colors.RESET}")
+    print(f"\n{Colors.CYAN}{Colors.BOLD}VietVoice TTS — Interactive Mode{Colors.RESET}")
     print(f"{Colors.GREEN}Welcome to the interactive text-to-speech synthesizer!{Colors.RESET}\n")
 
     text = ""

@@ -665,9 +665,9 @@ def convert_reference_tarball(
             "transposed": len(weight_report["transposed"]),
         }
 
-    from ..runtime.serialization import save_params
+    from ..runtime.serialization import PARAMS_FILE, save_params
 
-    save_params(pack / "params.msgpack", template)
+    save_params(pack / PARAMS_FILE, template)
     (pack / "model_meta.json").write_text(
         json.dumps(
             {

@@ -2,7 +2,7 @@
 
 The reference executes one opaque ONNX denoise step per Python-loop
 iteration (``/root/reference/vietvoicetts/core/tts_engine.py:148-174``).
-Here the step is an explicit JAX function designed for the TPU:
+Here the step is an explicit JAX function:
 
 - **AdaLN-Zero** conditioning from the flow time: each block's modulation
   (shift/scale/gate for attention and FFN) comes from one small matmul on
@@ -12,10 +12,10 @@ Here the step is an explicit JAX function designed for the TPU:
   one traced body instead of ``depth`` inlined copies (~10× faster XLA
   compile, identical math, and the stacked weights give the tensor-parallel
   sharder a single leaf per matmul: ``parallel/sharding.py``).
-- **Packed QKV** ``[q_heads ‖ k_heads ‖ v_heads]`` along the feature dim so
-  the Pallas kernel (``ops/pallas/fused_rope_attention.py``) can consume the
-  projection output with zero layout changes; the XLA path splits/reshapes.
-- **bf16 matmuls, f32 softmax/norms**: `compute_dtype` applies to the MXU
+- **Packed QKV** ``[q_heads ‖ k_heads ‖ v_heads]`` along the feature dim;
+  ``ops/attention.packed_rope_attention`` takes ``[B, N, H, D]`` views of
+  it, with the implementation ``ops/attention.choose_attention`` picks.
+- **bf16 matmuls, f32 softmax/norms**: `compute_dtype` applies to the matmul
   work; normalization, modulation, and the output are float32 (BASELINE
   numerics gate: mel atol 1e-2 vs the reference).
 - Text and mel share the sequence axis (F5-style): character IDs are padded
@@ -32,8 +32,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..ops.attention import attention
-from ..ops.rope import apply_rope, rope_tables
+from ..ops.attention import choose_attention, packed_rope_attention
+from ..ops.rope import rope_tables
 
 Params = Dict[str, Any]
 
@@ -53,10 +53,9 @@ class DiTConfig:
     text_conv_layers: int = 4
     vocab_size: int = 256
     compute_dtype: Any = jnp.bfloat16
-    # LayerNorm statistics dtype: f32 default; bf16 is a priced opt-in
-    # (~6 ms/solve at b1@448 for ~2.3e-3 extra mel drift; config.py).
+    # LayerNorm statistics dtype: f32 default; bf16 is an opt-in
+    # (less norm traffic, more mel drift; config.py).
     norm_dtype: Any = jnp.float32
-    use_pallas: bool = False
     # Sequence (context) parallelism: when ``seq_mesh`` is a jax Mesh, the
     # frame axis of every activation is sharded over ``seq_axis`` and
     # attention runs via parallel/sequence.sp_attention (Ulysses when heads
@@ -127,10 +126,8 @@ def init_dit_params(seed, cfg: DiTConfig) -> Params:
         "ff2": _dense(rng, cfg.ff_mult * d, d, depth),
     }
     # Convolutional position embedding as depthwise(k=31) → Mish →
-    # pointwise: the depthwise taps are VPU shifted-adds and the channel
-    # mixing is one dense MXU matmul. (A grouped conv here lowers to
-    # per-group contractions at ~2% MXU utilization — measured 33.8 ms/step
-    # at serving shapes vs ~2 ms for this split, same receptive field.)
+    # pointwise: the depthwise taps are shifted multiply-adds and the
+    # channel mixing is one dense matmul.
     k = CONV_POS_KERNEL
     conv_pos: List[dict] = [
         {
@@ -168,18 +165,12 @@ def init_dit_params(seed, cfg: DiTConfig) -> Params:
 # ---------------------------------------------------------------------------
 
 
-def _pallas_supports(heads: int, head_dim: int, n: int) -> bool:
-    from ..ops.pallas.fused_rope_attention import supports_shape
-
-    return supports_shape(heads, head_dim, n)
-
-
 def _layernorm(x: jnp.ndarray, stats_dtype=jnp.float32) -> jnp.ndarray:
     """Non-affine LayerNorm (AdaLN supplies scale/shift); returns f32.
 
     ``stats_dtype`` sets the mean/variance math: f32 default; bf16 skips
-    the upcast passes over the [B, N, dim] stream (a measured ~6 ms/solve
-    at b1@448) at ~2.3e-3 extra mel drift — opt-in via config.norm_dtype."""
+    the upcast passes over the [B, N, dim] stream at extra mel drift —
+    opt-in via config.norm_dtype."""
     xs = x.astype(stats_dtype)
     mu = jnp.mean(xs, axis=-1, keepdims=True)
     var = jnp.mean(jnp.square(xs - mu), axis=-1, keepdims=True)
@@ -247,9 +238,8 @@ def dit_time_modulations(params: Params, cfg: DiTConfig, t: jnp.ndarray):
     the sampler's time grid is static — computing all steps' modulations
     BEFORE the step scan reads the ada weight stack ([depth, d, 6d],
     ~270 MB in bf16 at full size) ONCE per solve instead of once per step.
-    At 31 evals that removes ~8 GB of pure weight HBM traffic (~10 ms/call
-    on v5e), the dominant non-matmul cost of the batch-1 latency path.
-    FLOPs are unchanged; accumulation stays f32 like the in-block matmul it
+    At 31 evals that removes ~8 GB of weight reads per solve. FLOPs are
+    unchanged; accumulation stays f32 like the in-block matmul it
     replaces."""
     t_emb = jax.nn.silu(_time_embedding(params["time_embed"], t))  # [S, d] f32
     ada = params["blocks"]["ada"]
@@ -361,16 +351,12 @@ def dit_forward_embedded(
     cos_np, sin_np = rope_tables(n, cfg.head_dim)
     cos, sin = jnp.asarray(cos_np), jnp.asarray(sin_np)
     heads, hd = cfg.heads, cfg.head_dim
+    attn_impl = choose_attention(jax.default_backend(), dtype, hd)
 
     # ada is consumed above (hoisted out of the scan); dropping it from the
     # scanned pytree keeps the loop body free of dead weight slices.
     blocks_scan = scanned_blocks(params)
 
-    # NOTE a fused Pallas AdaLN-norm kernel was tried and REJECTED here
-    # (round 4): parity-correct, but 2 kernels x 22 blocks x 31 steps =
-    # 1364 launches/solve cost ~+45 ms at b1@448 — launch overhead and the
-    # broken XLA fusion swamp the ~6 ms of norm traffic it saves. The
-    # elementwise chain below is what XLA fuses best.
     def modulated_norm(h, sc, sh):
         # sc/sh: [B', dim] f32; B' = 1 broadcasts over the batch.
         return (
@@ -379,8 +365,7 @@ def dit_forward_embedded(
 
     def block(h, xs):
         # h: [B, N, dim] residual stream in compute_dtype (norm math is f32;
-        # keeping the stream bf16 halves its HBM traffic — the DiT step is
-        # bandwidth-bound at serving shapes).
+        # keeping the stream bf16 halves its memory traffic).
         blk, mod = xs  # mod: [B', 6·dim] f32
         sh_a, sc_a, g_a, sh_f, sc_f, g_f = jnp.split(mod, 6, axis=-1)
 
@@ -394,33 +379,16 @@ def dit_forward_embedded(
                 q.reshape(b, n, heads, hd),
                 k.reshape(b, n, heads, hd),
                 v.reshape(b, n, heads, hd),
-                cos.astype(dtype),
-                sin.astype(dtype),
+                cos,
+                sin,
                 mask,
                 mesh=cfg.seq_mesh,
                 axis=cfg.seq_axis,
                 batch_axis=cfg.seq_batch_axis,
+                impl=attn_impl,
             ).reshape(b, n, heads * hd)
-        elif cfg.use_pallas and _pallas_supports(heads, hd, n):
-            # The kernel covers head_dim 128-multiples (one head per grid
-            # cell) and the converted-F5 shape head_dim 64 × even heads
-            # (head-pair cells); frames must be an 8-multiple (Mosaic
-            # sublane tiling). Shapes outside that (e.g. the golden
-            # harness's un-bucketed frame counts) take the XLA path below,
-            # which XLA fuses well enough that correctness never depends on
-            # the kernel.
-            from ..ops.pallas.fused_rope_attention import fused_qkv_rope_attention
-
-            attn = fused_qkv_rope_attention(qkv, cos, sin, mask, heads)
         else:
-            q, k, v = jnp.split(qkv, 3, axis=-1)
-            q = jnp.moveaxis(q.reshape(b, n, heads, hd), 1, 2)
-            k = jnp.moveaxis(k.reshape(b, n, heads, hd), 1, 2)
-            v = jnp.moveaxis(v.reshape(b, n, heads, hd), 1, 2)
-            q = apply_rope(q, cos.astype(dtype), sin.astype(dtype))
-            k = apply_rope(k, cos.astype(dtype), sin.astype(dtype))
-            attn = attention(q, k, v, mask, use_pallas=False)
-            attn = jnp.moveaxis(attn, 1, 2).reshape(b, n, heads * hd)
+            attn = packed_rope_attention(qkv, cos, sin, mask, heads, attn_impl)
         attn = attn @ blk["attn_out"]["w"].astype(dtype) + blk["attn_out"]["b"].astype(
             dtype
         )
@@ -444,8 +412,7 @@ def dit_forward_embedded(
         if presplit_blocks is not None:
             # Caller pre-sliced the stacked weights OUTSIDE its step scan:
             # slicing here, inside a scanned body, makes XLA re-materialize
-            # the sliced weight copies every loop iteration (measured: the
-            # deep-cache path got SLOWER than exact at j=11 before this).
+            # the sliced weight copies every loop iteration.
             shallow, deep = presplit_blocks
         else:
             shallow = jax.tree.map(lambda a: a[:j], blocks_scan)

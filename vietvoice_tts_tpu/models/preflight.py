@@ -17,10 +17,10 @@ and without touching the network or a device:
    per graph up front.
 3. **Architecture constructibility** — probed facts (``infer_architecture``)
    must be conflict-free and must produce a valid ``ModelConfig`` /
-   ``DiTConfig`` / ``VocoderConfig`` (dim divisible by heads, bucket grid
-   divisibility, embedding-table row convention vs ``vocab.txt``); plus
-   advisory notes on which attention path the probed head shape takes
-   (fused Pallas kernel vs XLA fallback).
+   ``DiTConfig`` / ``VocoderConfig`` (dim divisible by heads,
+   embedding-table row convention vs ``vocab.txt``); plus advisory notes on
+   which attention path the probed head shape takes on the GPU (cuDNN fused
+   attention vs the plain XLA path).
 4. **Name-map + heuristic weight coverage** — a dry-run of the exact
    resolution the converter performs (``map_initializers_to_params``):
    which parameter leaves the auto-discovered name map pins, which fall to
@@ -96,6 +96,7 @@ def _op_coverage(models) -> Dict[str, dict]:
 
 def _architecture_checks(arch: dict, vocab_size: Optional[int]) -> dict:
     """Probed facts → constructibility verdicts + advisory notes."""
+    from ..ops.attention import CUDNN, choose_attention
     from .convert import apply_probed_architecture
     from .dit import DiTConfig
     from .vocoder import VocoderConfig
@@ -142,24 +143,20 @@ def _architecture_checks(arch: dict, vocab_size: Optional[int]) -> dict:
         result["config"] = None
         return result
 
-    # Attention path note (fused_rope_attention.py applicability: head_dim
-    # a 128-multiple, or 64 with an even head count; frames % 8 == 0).
+    # GPU attention envelope (ops/attention.choose_attention): bf16 serving
+    # on the GPU takes cuDNN's fused attention when the head width fits it.
     hd, heads = dit_cfg.head_dim, dit_cfg.heads
-    if hd % 128 == 0 or (hd == 64 and heads % 2 == 0):
+    if choose_attention("gpu", "bfloat16", hd) == CUDNN:
         result["notes"].append(
-            f"heads={heads} head_dim={hd}: fused Pallas attention applies"
+            f"heads={heads} head_dim={hd}: cuDNN fused attention applies "
+            "to bf16 serving on the GPU"
         )
     else:
         result["notes"].append(
-            f"heads={heads} head_dim={hd}: outside the fused kernel's "
-            "envelope — attention falls back to the XLA path (correct, "
-            "slower at long frame counts)"
-        )
-    bad_buckets = [b for b in cfg.frame_buckets if b % 8]
-    if bad_buckets:
-        result["errors"].append(
-            f"frame buckets {bad_buckets} are not 8-multiples (Mosaic "
-            "sublane tiling requires N % 8 == 0)"
+            f"heads={heads} head_dim={hd}: outside cuDNN's fused-attention "
+            "envelope (head_dim a multiple of 8, at most 128) — attention "
+            "takes the plain XLA path on the GPU (correct, slower at long "
+            "frame counts)"
         )
     if cfg.n_fft % cfg.hop_length:
         result["notes"].append(

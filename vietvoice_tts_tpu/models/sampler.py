@@ -8,12 +8,14 @@ whole solve is ONE ``lax.scan`` inside the jitted chunk program:
 - **Sway-warped time grid** (F5 recipe): t ← t + s·(cos(πt/2) − 1 + t),
   spending more steps near t=0 where the field curves hardest.
 - **CFG as a doubled batch**: cond and uncond branches run as one [2B]
-  forward per step — one MXU pass instead of two kernel launches.
+  forward per step — one set of matmuls instead of two.
 - **Text embedding hoisted**: character features don't depend on (x, t),
   so both branches' embeddings are computed once outside the scan.
 - **Per-row seeded noise**: each utterance's initial noise derives from
   fold_in(key, row_seed), making output independent of batch composition
-  (the batcher can coalesce requests invisibly).
+  (the batcher can coalesce requests invisibly). On the GPU, programs of
+  different batch sizes may pick different GEMM kernels, so a row can
+  differ from its one-row run by rounding (tens of int16 steps).
 - ``fuse_nfe`` maps to ``lax.scan(..., unroll=fuse_nfe)`` — the same knob
   as the reference's fused-step count (``core/model_config.py:30``) but as
   a compiler unroll factor.
@@ -176,7 +178,7 @@ def flow_matching_sample(
 
         # Pre-slice the stacked block weights OUTSIDE the segment scan —
         # sliced inside the scanned body, XLA re-materializes the weight
-        # copies every iteration (measured: slower than exact at j=11).
+        # copies every iteration.
         from .dit import scanned_blocks
 
         blocks_scan = scanned_blocks(params)

@@ -1,17 +1,18 @@
 """Vocos-style neural vocoder (the reference's ``decode.onnx``).
 
 The reference's vocoder is an opaque graph run once per chunk
-(``/root/reference/vietvoicetts/core/tts_engine.py:176-187``). The TPU
-design is built from MXU-shaped pieces:
+(reference ``vietvoicetts/core/tts_engine.py:176-187``). Here it is
+built from matmuls and elementwise ops:
 
 - **ConvNeXt-1D trunk**: depthwise conv (shifted-add rewrite — seven
-  vector adds instead of a lane-misaligned gather conv), LayerNorm,
+  elementwise multiply-adds instead of a grouped conv), LayerNorm,
   pointwise 1×1 convs as plain matmuls, LayerScale residual. Blocks are
   stacked on a leading depth axis and run under ``lax.scan``.
 - **iSTFT head**: a linear layer predicts per-frame log-magnitude and
-  phase; the inverse real DFT is ONE [2·n_freqs, n_fft] matmul on the MXU
-  (no FFT butterflies — at n_fft=1024 the matmul is faster on TPU and
-  exact), followed by ``n_fft/hop`` strided overlap-adds.
+  phase; the inverse real DFT is ONE [2·n_freqs, n_fft] matmul (no FFT
+  butterflies, and exact), followed by ``n_fft/hop`` strided overlap-adds.
+  Whether cuDNN's depthwise conv or ``jnp.fft`` is faster on the GPU is not
+  measured yet.
 
 Everything is batched [B, N, …]; output is [B, N·hop] float32 waveform.
 """
@@ -109,9 +110,8 @@ def _dwconv(p: dict, x: jnp.ndarray) -> jnp.ndarray:
     ``lax.conv_general_dilated(..., feature_group_count=C)`` with NWC/WIO
     layout and weight [k, 1, C].
 
-    On TPU a channel-grouped conv lowers to per-channel contractions that
-    underutilize the MXU; k shifted element-wise multiply-adds are pure VPU
-    work fused into the surrounding ops by XLA.
+    The k shifted element-wise multiply-adds fuse into the surrounding ops
+    in XLA.
     """
     w, b = p["w"], p["b"]
     k = w.shape[0]
@@ -179,7 +179,7 @@ def istft_overlap_add(
     cos_b, sin_b = _idft_basis(n_fft)
     win = jnp.asarray(_hann_periodic(n_fft))
 
-    # One MXU matmul per basis: [B, N, n_freqs] @ [n_freqs, n_fft].
+    # One matmul per basis: [B, N, n_freqs] @ [n_freqs, n_fft].
     frames = real @ jnp.asarray(cos_b) + imag @ jnp.asarray(sin_b)
     frames = frames * win  # synthesis window
 

@@ -5,7 +5,7 @@ The reference's ``preprocess.onnx`` graph emits four RoPE tables
 call (``/root/reference/vietvoicetts/core/tts_engine.py:148-172``). Here the
 tables are precomputed once per frame bucket as a [N, head_dim] cos/sin pair
 (q and k share tables for self-attention) and applied with the half-split
-(GPT-NeoX) rotation, which keeps the lane dimension contiguous for the VPU.
+(GPT-NeoX) rotation, which keeps each half of the head dimension contiguous.
 """
 
 from __future__ import annotations

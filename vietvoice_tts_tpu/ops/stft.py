@@ -1,12 +1,12 @@
-"""Mel-spectrogram front-end as pure MXU matmuls.
+"""Mel-spectrogram front-end as dense matmuls.
 
 The reference computes reference-audio STFT→mel inside the opaque
 ``preprocess.onnx`` graph (run at
-``/root/reference/vietvoicetts/core/tts_engine.py:133-146``). TPU-first
-design: framing is a strided gather, then the windowed DFT is two matmuls
-against precomputed cos/sin bases (the MXU is far faster than any FFT
-butterfly at these sizes: win=1024 → a [F,1024]x[1024,513] matmul), and the
-mel projection is a third matmul. Everything is static-shape so one compiled
+reference ``vietvoicetts/core/tts_engine.py:133-146``). Here framing
+is a reshape plus shifted slices, then the windowed DFT is two matmuls
+against precomputed cos/sin bases (win=1024 → a [F,1024]x[1024,513]
+matmul), and the mel projection is a third matmul. Whether ``jnp.fft`` is
+faster on the GPU is not measured yet. Everything is static-shape so one compiled
 program serves each frame bucket.
 
 Vocos-style parameters (F5-TTS family): power-1 magnitude, HTK mel scale,
@@ -102,7 +102,7 @@ class MelFrontend:
         hop, win = self.hop_length, self.win_length
         if win % hop == 0 and pad % hop == 0:
             # win = P·hop ⇒ framing is a reshape + P shifted slices — no
-            # gather (TPU gathers of [F, win] index grids are slow).
+            # gather of an [F, win] index grid.
             phases = win // hop
             blocks = x.reshape(b, -1, hop)  # [B, n_blocks, hop]
             frames = jnp.concatenate(
@@ -112,7 +112,7 @@ class MelFrontend:
             starts = jnp.arange(n_frames) * hop
             idx = starts[:, None] + jnp.arange(win)[None, :]
             frames = x[:, idx]  # [B, F, win]
-        # Windowed real DFT as two MXU matmuls, f32 accumulation.
+        # Windowed real DFT as two matmuls, f32 accumulation.
         re = jnp.einsum(
             "bfw,wk->bfk", frames, self.cos_basis, preferred_element_type=jnp.float32
         )

@@ -8,8 +8,8 @@ comes from a 2-D ``jax.sharding.Mesh``:
 - ``data``  — utterance/chunk batches (and the serving loop's micro-batches);
 - ``model`` — tensor parallelism for DiT heads/FFN and vocoder channels.
 
-XLA lowers the resulting collectives onto ICI within a slice and DCN across
-slices; multi-host process groups come from ``jax.distributed.initialize``.
+XLA lowers the resulting collectives to the device interconnect (NCCL on the
+GPU); multi-host process groups come from ``jax.distributed.initialize``.
 """
 
 from __future__ import annotations
@@ -40,8 +40,8 @@ def make_mesh(
     """Build a (data × model) mesh over ``devices`` (defaults to all).
 
     ``data=None`` uses every remaining device after the model axis. The model
-    axis is laid out innermost so tensor-parallel collectives ride the
-    fastest ICI links.
+    axis is laid out innermost, so tensor-parallel groups are adjacent
+    devices. (On cards joined all to all, any layout is equivalent.)
     """
     devices = list(devices if devices is not None else jax.devices())
     n = len(devices)

@@ -12,7 +12,7 @@ and runs attention with two all-to-alls (the DeepSpeed-Ulysses recipe):
       ── all_to_all (scatter frames, gather heads)  ──▶ [B, N/sp, H, D]
 
 Head count must be divisible by the axis size (8 heads ÷ {2,4,8}). The
-all-to-alls ride ICI; everything else in the DiT stays elementwise over
+all-to-alls are the only communication; everything else in the DiT stays elementwise over
 frames and needs no communication. Exposed as a drop-in attention function
 over a ``shard_map``; correctness is tested against single-device attention
 on the virtual CPU mesh (tests/test_parallel.py).
@@ -24,8 +24,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..ops.attention import attention
-from ..ops.rope import apply_rope
+from ..ops.attention import PLAIN, rope_attend, rotate
 
 
 def sp_attention(
@@ -38,16 +37,21 @@ def sp_attention(
     mesh: Mesh,
     axis: str = "model",
     batch_axis: str | None = None,
+    impl: str = PLAIN,
 ) -> jnp.ndarray:
     """Sequence-parallel attention, auto-selecting the algorithm:
 
     Ulysses (two all-to-alls, full-sequence local attention) when the head
     count divides the axis size — the cheaper pattern; the ppermute ring
     (online-softmax merge) otherwise. This is the dispatcher
-    ``dit_forward_embedded`` calls when ``DiTConfig.seq_mesh`` is set."""
+    ``dit_forward_embedded`` calls when ``DiTConfig.seq_mesh`` is set.
+    ``impl`` (``ops/attention.choose_attention``) is the attention Ulysses
+    runs on its local heads; the ring runs its own online softmax."""
     sp = mesh.shape[axis]
     if q.shape[2] % sp == 0:
-        return ulysses_attention(q, k, v, cos, sin, mask, mesh, axis, batch_axis)
+        return ulysses_attention(
+            q, k, v, cos, sin, mask, mesh, axis, batch_axis, impl
+        )
     return ring_attention(q, k, v, cos, sin, mask, mesh, axis, batch_axis)
 
 
@@ -61,6 +65,7 @@ def ulysses_attention(
     mesh: Mesh,
     axis: str = "model",
     batch_axis: str | None = None,
+    impl: str = PLAIN,
 ) -> jnp.ndarray:
     """Sequence-parallel multi-head RoPE attention → [B, N, H, D] sharded
     like ``q``. ``H % mesh.shape[axis] == 0`` required. ``batch_axis``
@@ -81,12 +86,7 @@ def ulysses_attention(
         q_f = a2a_fwd(q_l)  # [B, N, H/sp, D]
         k_f = a2a_fwd(k_l)
         v_f = a2a_fwd(v_l)
-        # [B, H/sp, N, D] for the attention core.
-        q_b = apply_rope(jnp.moveaxis(q_f, 1, 2), cos_r, sin_r)
-        k_b = apply_rope(jnp.moveaxis(k_f, 1, 2), cos_r, sin_r)
-        v_b = jnp.moveaxis(v_f, 1, 2)
-        o = attention(q_b, k_b, v_b, mask_r, use_pallas=False)
-        o = jnp.moveaxis(o, 1, 2)  # [B, N, H/sp, D]
+        o = rope_attend(q_f, k_f, v_f, cos_r, sin_r, mask_r, impl)  # [B, N, H/sp, D]
         return a2a_bwd(o)  # [B, N/sp, H, D]
 
     spec_x = P(batch_axis, axis, None, None)
@@ -119,7 +119,7 @@ def ring_attention(
 
     The complement to :func:`ulysses_attention` for when the head count is
     NOT divisible by the axis size (Ulysses' hard requirement): K/V blocks
-    circulate around the ring via ``ppermute`` (one ICI hop per step) while
+    circulate around the ring via ``ppermute`` (one hop per step) while
     each device folds the visiting block into a running online softmax
     (max/sum/weighted-output accumulators — the flash-attention merge).
     Per device: sp matmul pairs of [N/sp, N/sp] instead of one [N/sp, N];
@@ -136,8 +136,8 @@ def ring_attention(
         # mask_l: [B, n/sp] local key validity.
         # RoPE with GLOBAL positions (tables arrive pre-sharded like q); a
         # k block carries its rotation with it around the ring.
-        q_b = apply_rope(jnp.moveaxis(q_l, 1, 2), cos_l, sin_l)  # [B,H,nl,D]
-        k_b = apply_rope(jnp.moveaxis(k_l, 1, 2), cos_l, sin_l)
+        q_b = jnp.moveaxis(rotate(q_l, cos_l, sin_l), 1, 2)  # [B,H,nl,D]
+        k_b = jnp.moveaxis(rotate(k_l, cos_l, sin_l), 1, 2)
         v_b = jnp.moveaxis(v_l, 1, 2)
         scale = d**-0.5
 

@@ -12,7 +12,7 @@ when the out-projection's input dim is sharded):
 - everything else replicated; activations shard batch on ``data``.
 
 No hand-written collectives: we annotate, XLA inserts `all-reduce`/
-`all-gather` over ICI (scaling-book recipe).
+`all-gather` (scaling-book recipe).
 """
 
 from __future__ import annotations

@@ -478,7 +478,10 @@ class TTSEngine:
         first piece arrives after ONE chunk's latency instead of the whole
         utterance's. A capability the reference does not have (its loop
         materializes all chunks before concatenation,
-        ``core/tts_engine.py:225-244``).
+        ``core/tts_engine.py:225-244``). Streaming runs each chunk as a
+        one-row program where ``synthesize()`` batches a bucket's chunks; on
+        the GPU the two programs may round differently, so there the match
+        is byte-exact only chunk wave for chunk wave (``chip_smoke.py``).
 
         ``first_chunk_duration`` (or ``config.streaming_first_chunk_duration``)
         additionally caps the FIRST chunk's target audio length so playback

@@ -1,13 +1,13 @@
 """Weight-pack and voice-catalog session management.
 
-TPU-native counterpart of the reference's ``ModelSessionManager``
+Counterpart of the reference's ``ModelSessionManager``
 (``/root/reference/vietvoicetts/core/model.py:18-224``), which downloads a
 tarball of three ONNX graphs, builds ORT sessions, and extracts
 vocab/metadata/reference audio. Here the "model" is a local weight pack
 directory:
 
     <model_cache_dir>/<model_name>/
-        params.msgpack       flax-serialized {'dit': ..., 'vocoder': ...}
+        params.npz           {'dit': ..., 'vocoder': ...} (runtime/serialization.py)
         model_meta.json      architecture dims the pack was built with
         vocab.txt            one character per line (same format as reference)
         audio_metadata.json  voice catalog (file_name/gender/group/area/emotion/text)
@@ -39,6 +39,10 @@ from ..utils.logging import get_logger
 from ..utils.wavio import write_wav
 
 log = get_logger("session")
+
+# Pack entries besides the parameters; any of them marks a directory that a
+# synthetic pack must not be written over.
+_PACK_FILES = ("model_meta.json", "vocab.txt", "audio_metadata.json", "audios")
 
 _VI_SENTENCES = [
     "Xin chào, đây là giọng nói tham khảo của hệ thống.",
@@ -123,7 +127,7 @@ class ModelSessionManager:
     def _materialize_pack(self, pack: Path) -> None:
         from ..models.dit import DiTConfig, init_dit_params
         from ..models.vocoder import VocoderConfig, init_vocoder_params
-        from .serialization import save_params
+        from .serialization import PARAMS_FILE, save_params
 
         log.info("Materializing weight pack at %s (seed=%d)", pack, self.config.random_seed)
         pack.mkdir(parents=True, exist_ok=True)
@@ -157,7 +161,6 @@ class ModelSessionManager:
             "dit": init_dit_params(rng, dit_cfg),
             "vocoder": init_vocoder_params(rng, voc_cfg),
         }
-        save_params(pack / "params.msgpack", params)
         meta = {
             "vocab_size": len(chars),
             "dit": {
@@ -214,6 +217,8 @@ class ModelSessionManager:
         (pack / "audio_metadata.json").write_text(
             json.dumps(catalog, ensure_ascii=False, indent=1)
         )
+        # Written last: a pack directory with parameters is a complete one.
+        save_params(pack / PARAMS_FILE, params)
         # CSV mirror for the reference_samples catalog API. Prefer the bundled
         # REAL 239-row catalog (models_data/reference_samples.csv — the
         # reference ships the same file in-repo, /root/reference/models/
@@ -250,10 +255,25 @@ class ModelSessionManager:
 
     def load_models(self) -> None:
         """Load (materializing if needed) params, vocab, and catalog."""
-        from .serialization import load_params
+        from .serialization import LEGACY_PARAMS_FILE, PARAMS_FILE, load_params
 
         pack = Path(self.config.model_path)
-        if not (pack / "params.msgpack").exists():
+        if not (pack / PARAMS_FILE).exists():
+            if (pack / LEGACY_PARAMS_FILE).exists():
+                raise RuntimeError(
+                    f"Weight pack at {pack} holds {LEGACY_PARAMS_FILE}, the "
+                    f"flax-msgpack format this version no longer reads. Re-run "
+                    f"models/convert.py on the reference tarball to write "
+                    f"{PARAMS_FILE}."
+                )
+            present = [f for f in _PACK_FILES if (pack / f).exists()]
+            if present:
+                raise RuntimeError(
+                    f"Weight pack at {pack} has {', '.join(present)} but no "
+                    f"{PARAMS_FILE}: refusing to materialize random weights "
+                    "over it. Restore the pack, or remove the directory to "
+                    "have a synthetic one made."
+                )
             if not self.config.allow_synthetic_pack:
                 raise RuntimeError(
                     f"No weight pack at {pack} and allow_synthetic_pack=False: "
@@ -280,7 +300,7 @@ class ModelSessionManager:
                 pack,
             )
         self.vocab_size = meta["vocab_size"]
-        self.params = load_params(pack / "params.msgpack")
+        self.params = load_params(pack / PARAMS_FILE)
         self.vocab_path = str(pack / "vocab.txt")
         self.sample_metadata = json.loads((pack / "audio_metadata.json").read_text())
         self.model_meta = meta

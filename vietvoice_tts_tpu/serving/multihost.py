@@ -1,17 +1,17 @@
-"""Multi-host lockstep serving loop for TPU pod slices.
+"""Multi-host lockstep serving loop for a mesh that spans several hosts.
 
 The reference serves from one process with one engine
-(``/root/reference/vietvoicetts/api/tts_engine.py:11-29``). On a pod slice,
-every host must enter the same XLA program at the same time (SPMD), so a
+(reference ``vietvoicetts/api/tts_engine.py:11-29``). On a multi-host
+mesh, every host must enter the same XLA program at the same time (SPMD), so a
 naive per-host HTTP server deadlocks the mesh. This loop implements the
 standard recipe:
 
 - host 0 runs the HTTP front-end and owns the request queue;
 - each iteration, host 0 drains up to one device batch of chunk jobs and
   **broadcasts** the batch (or an empty heartbeat) to all hosts via
-  ``multihost_utils.broadcast_one_to_all`` over DCN;
+  ``multihost_utils.broadcast_one_to_all`` over the host network;
 - every host then calls the same jitted ``synthesize_batch`` on its shard of
-  the ``data`` axis — XLA collectives ride ICI;
+  the ``data`` axis — XLA inserts the device collectives;
 - host 0 de-batches results back to the waiting futures.
 
 Heartbeats (empty batches on the smallest bucket) keep the loop live-locked
@@ -195,14 +195,14 @@ class MultiHostServingLoop:
         return jobs, batch
 
     def _broadcast(self, batch: Optional[_Batch], stop: bool = False) -> _Batch:
-        """Ship host 0's batch to every host (DCN), compactly.
+        """Ship host 0's batch to every host, compactly.
 
         The wave rows carry only the reference-audio prefix (everything past
         ``ref_len·hop`` is zero by construction, ``engine._chunk_row``), so
         the payload is the prefix in float16 plus int16 text ids — not the
         full f32 bucket wave. Bytes/step at bucket 2048 × batch 8 with a 3 s
         reference: ~1.2 MB wave + 32 KB ids, vs ~16.8 MB + 64 KB for naive
-        f32/i32 full-bucket broadcast (≈14× less DCN traffic). Every host —
+        f32/i32 full-bucket broadcast (≈14× less host-network traffic). Every host —
         coordinator included — rebuilds the batch from the broadcast result,
         so the SPMD inputs are bit-identical across hosts."""
         if self.n_hosts == 1:
@@ -300,7 +300,7 @@ class MultiHostServingLoop:
                     continue  # single host: no heartbeat needed
             try:
                 batch = self._broadcast(batch, stop=stop_now)
-            except Exception as e:  # noqa: BLE001 — a dead DCN wedges the mesh
+            except Exception as e:  # noqa: BLE001 — a dead host link wedges the mesh
                 if self._running:
                     log.error("Serving loop broadcast failed, stopping: %s", e)
                 self._running = False
@@ -333,7 +333,7 @@ class MultiHostServingLoop:
                     # entered one it never dispatched results for). A
                     # silently-continuing loop would desync every later
                     # collective — stop loudly instead; supervision restarts
-                    # the slice (SURVEY §5: reference has no recovery at
+                    # the hosts (SURVEY §5: reference has no recovery at
                     # all, our failure contract is documented fail-stop).
                     log.error(
                         "Dispatch failure on host %d of %d breaks SPMD "

@@ -72,10 +72,10 @@ class CheckpointManager:
 
     def export_for_inference(self, params: Any, pack_dir: str | Path) -> None:
         """Write trained params into the inference weight pack."""
-        from ..runtime.serialization import save_params
+        from ..runtime.serialization import PARAMS_FILE, save_params
 
         host = jax.tree.map(lambda x: jax.device_get(x), params)
-        save_params(Path(pack_dir) / "params.msgpack", host)
+        save_params(Path(pack_dir) / PARAMS_FILE, host)
         log.info("Exported params to %s", pack_dir)
 
     def close(self) -> None:

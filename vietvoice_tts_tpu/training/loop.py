@@ -72,7 +72,6 @@ def train(
         text_conv_layers=model_config.text_conv_layers,
         vocab_size=session.vocab_size,
         compute_dtype=jax.numpy.dtype(model_config.compute_dtype),
-        use_pallas=False,  # training keeps the differentiable XLA path
     )
 
     if mesh is None and model_config.mesh_data_axis * model_config.mesh_model_axis > 1:
@@ -133,12 +132,12 @@ def train(
         ckpt.save(step, params, opt_state, force=True)
     ckpt.manager.wait_until_finished()
     if run.export_to_pack:
-        from ..runtime.serialization import load_params, save_params
+        from ..runtime.serialization import PARAMS_FILE, load_params, save_params
 
         pack = Path(model_config.model_path)
-        full = load_params(pack / "params.msgpack")
+        full = load_params(pack / PARAMS_FILE)
         full["dit"] = jax.tree.map(np.asarray, jax.device_get(params))
-        save_params(pack / "params.msgpack", full)
+        save_params(pack / PARAMS_FILE, full)
         log.info("Exported trained DiT into %s", pack)
     ckpt.close()
     return {"final_step": step, "final_loss": losses[-1] if losses else None}

@@ -115,7 +115,7 @@ def make_train_step(dit_cfg: DiTConfig, train_cfg: TrainConfig):
     """Build the jittable (params, opt_state, key, batch) → updated state.
 
     ``train_cfg.compute_dtype`` overrides the DiT's compute dtype for the
-    forward/backward pass (bf16 MXU work, f32 master weights + optimizer)."""
+    forward/backward pass (bf16 matmuls, f32 master weights + optimizer)."""
     optimizer = make_optimizer(train_cfg)
     dit_cfg = dataclasses.replace(
         dit_cfg, compute_dtype=jnp.dtype(train_cfg.compute_dtype)
